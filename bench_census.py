@@ -16,7 +16,8 @@ A "missed" crossing is a K=50 crossing time with no K crossing within 1% —
 closely spaced double roots inside one accepted step are exactly what the
 dense scan exists to catch.  One JSON line per K.
 
-Env: CENSUS_EVENTS (default 65536 TPU / 512 CPU), CENSUS_KS, CENSUS_SEED.
+Env: CENSUS_EVENTS (default 65536 on the GPU / 512 on the CPU), CENSUS_KS,
+CENSUS_SEED.
 """
 
 import json
@@ -32,23 +33,22 @@ def _sample_events(sc, n, seed, cfg):
     import jax
     import jax.numpy as jnp
 
-    from adiabatic_raytracer_tpu.models.magnetosphere import (
+    from adiabatic_raytracer.models.magnetosphere import (
         conversion_surface_radius)
-    from adiabatic_raytracer_tpu.ops import sampler
-    from adiabatic_raytracer_tpu.ops.dispersion import k_norm_cart
+    from adiabatic_raytracer.ops import sampler
+    from adiabatic_raytracer.ops.dispersion import k_norm_cart
 
     maxR = float(conversion_surface_radius(sc.mass_a, sc.theta_m, sc.omega_pul,
                                            sc.b0, sc.r_ns))
     n_grid = sampler.default_n_grid(maxR)
     platform = jax.devices()[0].platform
-    line_engine = "pallas" if platform != "cpu" else "xla"
     key = jax.random.PRNGKey(seed)
     xs, vs, es = [], [], []
     got = 0
     chunk = 8192 if platform != "cpu" else 256
     samp = jax.jit(lambda k: sampler.sample_batch(
         k, chunk, maxR, sc, sc.mass_ns, n_grid=n_grid,
-        compute_dtype=cfg.compute_dtype, line_engine=line_engine))
+        compute_dtype=cfg.compute_dtype))
     while got < n:
         key, sub = jax.random.split(key)
         res = samp(sub)
@@ -72,8 +72,8 @@ def main():
 
     jax.config.update("jax_enable_x64", True)
 
-    from adiabatic_raytracer_tpu.config import NumericsConfig, Scene, TreeConfig
-    from adiabatic_raytracer_tpu.ops import tree
+    from adiabatic_raytracer.config import NumericsConfig, Scene, TreeConfig
+    from adiabatic_raytracer.ops import tree
 
     platform = jax.devices()[0].platform
     n = int(os.environ.get(
@@ -83,9 +83,12 @@ def main():
         "CENSUS_KS", "4,8,16,32,50").split(",")]
     if 50 not in ks:
         ks.append(50)
-    compute_dtype = "state" if platform == "cpu" else "f32"
-    engine = os.environ.get(
-        "CENSUS_ENGINE", "pool" if platform == "cpu" else "mega")
+    from adiabatic_raytracer import runtime
+
+    runtime.setup_compile_cache()
+    auto = runtime.engine_defaults(platform)
+    compute_dtype = auto["compute_dtype"]
+    engine = auto["engine"]
 
     sc = Scene(mass_a=1e-5, ax_g=1e-12, theta_m=0.2, omega_pul=1.0, b0=1e14,
                r_ns=10.0, mass_ns=1.0)
@@ -95,23 +98,12 @@ def main():
 
     xpos, k_init, erg = _sample_events(sc, n, seed, base)
 
-    # Ground truth is the PLAIN (ungated) 50-point scan — the reference's
-    # exact density; every other configuration (including gated-50, the
-    # production default) is compared against it.
+    # Ground truth is the 50-point scan — the reference's exact density;
+    # every other configuration is compared against it.
     import dataclasses
     configs = {}
     for k in sorted(set(ks)):
         configs[str(k)] = dataclasses.replace(base, interp_points=k)
-    configs["50plain"] = dataclasses.replace(base, interp_points=50,
-                                             interp_coarse=0)
-    # CENSUS_GATES="coarse:theta,..." adds gated-50 variants, e.g. "4:0.15"
-    # runs the 50-point scan behind a 4-point coarse pass gated at
-    # scan_gate_theta=0.15 — for sweeping the gate's (cost, safety) frontier.
-    for spec in filter(None, os.environ.get("CENSUS_GATES", "").split(",")):
-        kc, th = spec.split(":")
-        configs[f"50c{kc}t{th}"] = dataclasses.replace(
-            base, interp_points=50, interp_coarse=int(kc),
-            scan_gate_theta=float(th))
 
     results = {}
     walls = {}
@@ -128,7 +120,7 @@ def main():
         walls[name] = time.perf_counter() - t0
         results[name] = (nc, tc)
 
-    nc50, tc50 = results["50plain"]
+    nc50, tc50 = results["50"]
     for name in configs:
         nc, tc = results[name]
         same_n = nc == nc50
@@ -144,14 +136,10 @@ def main():
                     missed += 1
         hist = np.bincount(np.minimum(nc, 8), minlength=9).tolist()
         cfg = configs[name]
-        gated = 0 < cfg.interp_coarse < cfg.interp_points
         print(json.dumps({
             "metric": "crossing_census",
             "config": name,
             "interp_points": cfg.interp_points,
-            "gated": bool(gated),
-            "interp_coarse": cfg.interp_coarse if gated else 0,
-            "scan_gate_theta": float(cfg.scan_gate_theta) if gated else None,
             "events": int(n),
             "total_crossings": int(nc.sum()),
             "n_cross_hist": hist,
@@ -160,7 +148,9 @@ def main():
             "extra_vs_50": extra,
             "wall_s": round(walls[name], 3),
             "engine": engine,
-            "platform": platform,
+            "device": {"platform": platform,
+                       "kind": jax.devices()[0].device_kind,
+                       "count": len(jax.devices())},
         }))
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Quantify the work-queue K-batch cutoff overshoot (VERDICT r2 weak #2).
+"""Quantify the work-queue K-batch cutoff overshoot.
 
 The batched tree engine checks prob/num/max cutoffs once per K-node
 iteration (ops/tree.py), so an event may process up to K-1 nodes past the
@@ -25,24 +25,29 @@ import sys
 import tempfile
 import time
 
+# scratch output stays inside the checkout (results/ is git-ignored)
+RESULTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results")
+
 
 def _run(tree_k, n_events, event_batch, seed):
     import jax
 
-    from adiabatic_raytracer_tpu.config import NumericsConfig, Scene, TreeConfig
-    from adiabatic_raytracer_tpu.driver import run
+    from adiabatic_raytracer.config import NumericsConfig, Scene, TreeConfig
+    from adiabatic_raytracer.driver import run
 
-    platform = jax.devices()[0].platform
+    from adiabatic_raytracer import runtime
+
+    auto = runtime.current_defaults()
     sc = Scene(mass_a=1e-5, ax_g=1e-12, theta_m=0.2, omega_pul=1.0, b0=1e14,
                r_ns=10.0, mass_ns=1.0)
     cfg = NumericsConfig(
         rtol=1e-7, atol=1e-6,
-        compute_dtype="state" if platform == "cpu" else "f32",
-        engine="pool" if platform == "cpu" else "mega",
+        compute_dtype=auto["compute_dtype"], engine=auto["engine"],
         tree_k=tree_k)
     tcfg = TreeConfig(prob_cutoff=1e-10, num_cutoff=50, mc_nodes=10,
                       max_nodes=100)
-    tmp = tempfile.mkdtemp(prefix="bench_overshoot_")
+    os.makedirs(RESULTS, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="bench_overshoot_", dir=RESULTS)
     try:
         t0 = time.perf_counter()
         rows, _, stats = run(sc, cfg, tcfg, 1 + n_events, seed=seed,

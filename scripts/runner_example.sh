@@ -1,15 +1,10 @@
 #!/bin/bash
-# Local fan-out runner (reference: src/runner_example.sh) — six parallel shard
-# processes merged by the combine step.  On a TPU host prefer a single process
-# with a large --event_batch (the mesh shards on-device); this script exists
-# for CPU-host / file-shard parity.
-declare -i trajs=1000
-for i in 0 1 2 3 4 5; do
-  (time python -m adiabatic_raytracer_tpu --MassA 1e-5 --B0 1e14 --ThetaM 0.2 \
-      --Nts $trajs --probCutoff 1e-10 --numCutoff 50 --MCNodes 10 \
-      --maxNodes 100 --ftag "example_$i" &> "example_$i.log") &
-done
-wait
-python -m adiabatic_raytracer_tpu --run_RT 0 --run_Combine 1 --side_runs 6 \
-    --MassA 1e-5 --B0 1e14 --ThetaM 0.2 --Nts $trajs --probCutoff 1e-10 \
-    --numCutoff 50 --MCNodes 10 --maxNodes 100 --ftag "example_"
+# Production runner (reference: src/runner_example.sh, which forks six
+# 1,000-event processes on one host and merges their files).  Here one
+# process runs all 6,000 events and shards each batch over the host's GPUs
+# with --mesh.  Never start two JAX processes on one card: each reserves
+# most of the card's memory when it starts.
+ngpu=$(nvidia-smi -L 2>/dev/null | wc -l)
+time python -m adiabatic_raytracer --MassA 1e-5 --B0 1e14 --ThetaM 0.2 \
+    --Nts 6001 --probCutoff 1e-10 --numCutoff 50 --MCNodes 10 \
+    --maxNodes 100 --mesh "$ngpu" --ftag example &> example.log

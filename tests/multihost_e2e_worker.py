@@ -19,7 +19,7 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
-from adiabatic_raytracer_tpu.cli import main  # noqa: E402
+from adiabatic_raytracer.cli import main  # noqa: E402
 
 # the CLI's multi-host flags (--coordinator/--nprocs/--procid) drive
 # parallel.mesh.init_distributed exactly like a SLURM task would

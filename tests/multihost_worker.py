@@ -2,7 +2,7 @@
 
 Usage: python multihost_worker.py <port> <nprocs> <pid> <out_json>
 Each process owns ONE virtual CPU device; the global mesh spans both
-processes over DCN (gloo).  Validates the multi-host path of
+processes over the host network (gloo).  Validates the multi-host path of
 parallel/mesh.py: init_distributed -> make_mesh -> shard_over_events with a
 psum reduction (the on-device combine_files equivalent).
 """
@@ -27,7 +27,7 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from adiabatic_raytracer_tpu.parallel.mesh import (
+from adiabatic_raytracer.parallel.mesh import (
     EVENT_AXIS, init_distributed, make_mesh, shard_over_events)
 
 init_distributed(f"127.0.0.1:{port}", nprocs, pid)
@@ -43,7 +43,7 @@ garr = jax.make_array_from_callback((E,), sh, lambda idx: vals[idx])
 
 
 def local(v):
-    # local shard reduction + cross-host psum over DCN
+    # local shard reduction + cross-host psum over the network
     tot = jax.lax.psum(jnp.sum(v), EVENT_AXIS)
     return jnp.broadcast_to(tot, v.shape)
 

@@ -1,7 +1,7 @@
 """Independent re-transcription oracle of the reference formula chain.
 
 This module is deliberately self-contained: it imports NOTHING from
-`adiabatic_raytracer_tpu` and was transcribed afresh, line by line, from the
+`adiabatic_raytracer` and was transcribed afresh, line by line, from the
 Julia source of the reference (file:line citations at each function).  Its
 purpose is to break the self-referentiality of the parity tests — the scipy
 oracle integrates the package's own RHS and the conversion-prob pins are

@@ -6,8 +6,8 @@ import os
 
 import numpy as np
 
-from adiabatic_raytracer_tpu.config import NumericsConfig, Scene, TreeConfig
-from adiabatic_raytracer_tpu.driver import run
+from adiabatic_raytracer.config import NumericsConfig, Scene, TreeConfig
+from adiabatic_raytracer.driver import run
 
 SC = Scene(theta_m=0.2)
 CFG = NumericsConfig(interp_points=8, max_crossings=8)
@@ -41,7 +41,7 @@ def test_resume_matches_uninterrupted(tmp_path):
 
 
 def test_vns_decomposition():
-    from adiabatic_raytracer_tpu.driver import vns_spherical
+    from adiabatic_raytracer.driver import vns_spherical
 
     mag, th, ph = vns_spherical((0.0, 0.0, 0.0))
     assert (mag, th, ph) == (0.0, 0.0, 0.0)

@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adiabatic_raytracer_tpu.config import Scene
-from adiabatic_raytracer_tpu.constants import C_KM, G_NEW
-from adiabatic_raytracer_tpu.models.magnetosphere import omega_p_sph
-from adiabatic_raytracer_tpu.ops import conversion as cv
-from adiabatic_raytracer_tpu.ops.dispersion import k_norm_cart, k_sphere
-from adiabatic_raytracer_tpu.ops.geometry import cart_to_sph
+from adiabatic_raytracer.config import Scene
+from adiabatic_raytracer.constants import C_KM, G_NEW
+from adiabatic_raytracer.models.magnetosphere import omega_p_sph
+from adiabatic_raytracer.ops import conversion as cv
+from adiabatic_raytracer.ops.dispersion import k_norm_cart, k_sphere
+from adiabatic_raytracer.ops.geometry import cart_to_sph
 
 
 SC = Scene(mass_a=1e-5, ax_g=1e-12, theta_m=0.4, omega_pul=1.0, b0=1e14,
@@ -57,7 +57,7 @@ def test_dwp_ds_iso_matches_fd():
 
     # finite-difference directional derivative of omega_p along khat (covariant)
     x_sph = cart_to_sph(x_cart)
-    from adiabatic_raytracer_tpu.models.metric import metric_inverse
+    from adiabatic_raytracer.models.metric import metric_inverse
     g = metric_inverse(x_sph, sc.mass_ns)
     kmag = jnp.sqrt(g[1] * ks[0] ** 2 + g[2] * ks[1] ** 2 + g[3] * ks[2] ** 2)
     khat_cov = ks / kmag

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adiabatic_raytracer_tpu.config import Scene
-from adiabatic_raytracer_tpu.models.metric import metric_inverse
-from adiabatic_raytracer_tpu.ops import dispersion as disp
-from adiabatic_raytracer_tpu.ops.geometry import cart_to_sph, celerity_from_cart, sph_to_cart
+from adiabatic_raytracer.config import Scene
+from adiabatic_raytracer.models.metric import metric_inverse
+from adiabatic_raytracer.ops import dispersion as disp
+from adiabatic_raytracer.ops.geometry import cart_to_sph, celerity_from_cart, sph_to_cart
 
 
 SC = Scene(mass_a=1e-5, theta_m=0.4, omega_pul=1.0, b0=1e14, r_ns=10.0, mass_ns=1.0)
@@ -85,7 +85,7 @@ def test_isotropic_mode():
 
 def test_celerity_roundtrip():
     """cart -> celerity -> cart velocity recovers direction."""
-    from adiabatic_raytracer_tpu.ops.geometry import celerity_to_cart_vel
+    from adiabatic_raytracer.ops.geometry import celerity_to_cart_vel
 
     x_cart, khat = _shell_point()
     w = celerity_from_cart(x_cart, khat, SC.mass_ns)

@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from adiabatic_raytracer_tpu.constants import GAUSS_TO_EV2, HBAR
-from adiabatic_raytracer_tpu.models import magnetosphere as mag
-from adiabatic_raytracer_tpu.ops.geometry import sph_to_cart
+from adiabatic_raytracer.constants import GAUSS_TO_EV2, HBAR
+from adiabatic_raytracer.models import magnetosphere as mag
+from adiabatic_raytracer.ops.geometry import sph_to_cart
 
 
 def ref_omega_p(bz, omega):

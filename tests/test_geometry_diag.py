@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from adiabatic_raytracer_tpu.config import Scene
-from adiabatic_raytracer_tpu.ops import geometry
-from adiabatic_raytracer_tpu.ops.dispersion import ctheta_b_sphere
-from adiabatic_raytracer_tpu.ops.dispersion import test_on_shell as on_shell_diag
+from adiabatic_raytracer.config import Scene
+from adiabatic_raytracer.ops import geometry
+from adiabatic_raytracer.ops.dispersion import ctheta_b_sphere
+from adiabatic_raytracer.ops.dispersion import test_on_shell as on_shell_diag
 
 SC = Scene(mass_a=1e-5, ax_g=1e-12, theta_m=0.3, omega_pul=1.0, b0=1e14,
            r_ns=10.0, mass_ns=1.0)
@@ -65,7 +65,7 @@ def test_on_shell_probe():
 def test_legacy_flat_sampling_measure():
     """find_samples' 1/r measure (flat_sampling=False) draws r uniformly,
     the production measure (True) sqrt-uniformly."""
-    from adiabatic_raytracer_tpu.ops import sampler
+    from adiabatic_raytracer.ops import sampler
 
     key = jax.random.PRNGKey(3)
     res_flat = sampler.sample_batch(key, 64, 25.0, SC, SC.mass_ns, n_grid=256,

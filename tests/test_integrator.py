@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adiabatic_raytracer_tpu.config import NumericsConfig, Scene
-from adiabatic_raytracer_tpu.constants import C_KM, G_NEW
-from adiabatic_raytracer_tpu.ops.integrator import integrate_pool
-from adiabatic_raytracer_tpu.ops.propagate import propagate
+from adiabatic_raytracer.config import NumericsConfig, Scene
+from adiabatic_raytracer.constants import C_KM, G_NEW
+from adiabatic_raytracer.ops.integrator import integrate_pool
+from adiabatic_raytracer.ops.propagate import propagate
 
 
 def _run_simple(rhs, cond, u0, t0, t1, cfg, **kw):
@@ -168,3 +168,18 @@ def test_pi_controller_accuracy_and_steps():
     np.testing.assert_allclose(np.asarray(res_pi.u), np.asarray(res_i.u),
                                atol=1e-5)
     assert int(np.asarray(res_pi.steps).sum()) <= int(np.asarray(res_i.steps).sum())
+
+
+def test_flops_per_step_counts_the_scan():
+    """The pool integrator's per-step operation count grows linearly with
+    the crossing-scan density: each extra interior point costs one Hermite
+    + condition evaluation."""
+    from adiabatic_raytracer.ops.propagate import flops_per_step
+
+    sc = Scene(theta_m=0.2)
+    f = {k: flops_per_step(sc, NumericsConfig(interp_points=k))
+         for k in (2, 8, 50)}
+    assert 0 < f[2] < f[8] < f[50]
+    per_point = (f[50] - f[8]) / 42.0
+    np.testing.assert_allclose((f[8] - f[2]) / 6.0, per_point, rtol=1e-9)
+    assert f[2] > 6 * per_point * 0.1   # the six RHS evaluations dominate

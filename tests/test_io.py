@@ -3,8 +3,8 @@ MainRunner.jl:750-761)."""
 
 import numpy as np
 
-from adiabatic_raytracer_tpu.utils.format import julia_float_str, julia_str
-from adiabatic_raytracer_tpu.utils.npyio import combine_files, save_npy, tree_filename
+from adiabatic_raytracer.utils.format import julia_float_str, julia_str
+from adiabatic_raytracer.utils.npyio import combine_files, save_npy, tree_filename
 
 
 def test_julia_float_repr():

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adiabatic_raytracer_tpu.constants import C_KM, G_NEW
-from adiabatic_raytracer_tpu.models import metric
+from adiabatic_raytracer.constants import C_KM, G_NEW
+from adiabatic_raytracer.models import metric
 
 
 def ref_metric_exterior(r, theta, mass_ns):

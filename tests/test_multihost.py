@@ -1,4 +1,4 @@
-"""Two-process jax.distributed smoke test (CPU, DCN via gloo).
+"""Two-process jax.distributed smoke test (CPU, host network via gloo).
 
 The multi-host analogue of the reference's SLURM fan-out
 (runner_GR_tasks.sh:1-28): two OS processes, one virtual CPU device each,
@@ -68,7 +68,7 @@ def test_two_process_end_to_end_shards_and_combine(tmp_path):
     perturb the physics, and the file-merge semantics must compose."""
     import numpy as np
 
-    from adiabatic_raytracer_tpu.cli import main as cli_main
+    from adiabatic_raytracer.cli import main as cli_main
 
     port = _free_port()
     nprocs = 2

@@ -14,15 +14,15 @@ import numpy as np
 import pytest
 from scipy.integrate import solve_ivp
 
-from adiabatic_raytracer_tpu.config import NumericsConfig, Scene
-from adiabatic_raytracer_tpu.ops.conversion import get_prob_nonad
-from adiabatic_raytracer_tpu.ops.dispersion import k_norm_cart
-from adiabatic_raytracer_tpu.ops.geometry import (
+from adiabatic_raytracer.config import NumericsConfig, Scene
+from adiabatic_raytracer.ops.conversion import get_prob_nonad
+from adiabatic_raytracer.ops.dispersion import k_norm_cart
+from adiabatic_raytracer.ops.geometry import (
     cart_to_sph,
     celerity_from_cart,
     sph_to_cart,
 )
-from adiabatic_raytracer_tpu.ops.propagate import (
+from adiabatic_raytracer.ops.propagate import (
     crossing_condition,
     make_rhs,
     propagate,

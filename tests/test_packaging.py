@@ -1,5 +1,5 @@
 """Packaging: the framework is pip-installable (editable) with a console
-entry point (pyproject.toml; VERDICT r4 item 7)."""
+entry point (pyproject.toml)."""
 
 import importlib.metadata
 
@@ -8,24 +8,24 @@ import pytest
 
 def _dist():
     try:
-        return importlib.metadata.distribution("adiabatic-raytracer-tpu")
+        return importlib.metadata.distribution("adiabatic-raytracer")
     except importlib.metadata.PackageNotFoundError:
         pytest.skip("package not installed — run `pip install -e .`")
 
 
 def test_installed_metadata():
     dist = _dist()
-    import adiabatic_raytracer_tpu
+    import adiabatic_raytracer
 
-    assert dist.version == adiabatic_raytracer_tpu.__version__
+    assert dist.version == adiabatic_raytracer.__version__
 
 
 def test_console_script_resolves_to_cli_main():
     dist = _dist()
     eps = [ep for ep in dist.entry_points
-           if ep.name == "adiabatic-raytracer-tpu"]
+           if ep.name == "adiabatic-raytracer"]
     assert eps, "console script missing"
     fn = eps[0].load()
-    from adiabatic_raytracer_tpu.cli import main
+    from adiabatic_raytracer.cli import main
 
     assert fn is main

@@ -1,16 +1,15 @@
 """Mixed-precision validation: f64 state + f32 physics vs full f64.
 
-The TPU production path evaluates fields/Hamiltonians in f32 (TPU
-transcendentals are f32-grade even under emulated f64) while integrating in
-f64.  The parity contract is trajectory endpoints < 1e-4 relative error
+The compute_dtype="f32" path evaluates fields/Hamiltonians in f32 while
+integrating in f64.  The parity contract is trajectory endpoints < 1e-4 relative error
 (BASELINE.md); the mixed scheme must stay far inside that."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from adiabatic_raytracer_tpu.config import NumericsConfig, Scene
-from adiabatic_raytracer_tpu.ops.propagate import propagate
+from adiabatic_raytracer.config import NumericsConfig, Scene
+from adiabatic_raytracer.ops.propagate import propagate
 
 
 def _run(compute_dtype):
@@ -59,17 +58,15 @@ def test_mixed_precision_endpoints():
 
 def test_event_kinematics_device_value_is_range_safe():
     """The event weight sln_prob is ~1e39-1e42 (MainRunner.jl:552-558 unit
-    factors) — beyond f32 max AND beyond what a TPU can hold in ANY dtype
-    (its "f64" is float-float emulation with the f32 exponent range; an
-    on-device assembly produced inf in f32 and NaN in emulated f64,
-    caught by bench_overshoot's sum_pps on the real chip).  Contract:
+    factors) — beyond f32 max (an on-device assembly in f32 gives inf).
+    Contract:
     the DEVICE side returns an O(1e2) per-event factor (sln_base), and the
     scalar rest (driver.sln_scale) multiplies in host f64."""
-    from adiabatic_raytracer_tpu.config import TreeConfig
-    from adiabatic_raytracer_tpu.driver import _event_kinematics, sln_scale
-    from adiabatic_raytracer_tpu.models.magnetosphere import (
+    from adiabatic_raytracer.config import TreeConfig
+    from adiabatic_raytracer.driver import _event_kinematics, sln_scale
+    from adiabatic_raytracer.models.magnetosphere import (
         conversion_surface_radius)
-    from adiabatic_raytracer_tpu.ops import sampler
+    from adiabatic_raytracer.ops import sampler
 
     sc = Scene(mass_a=1e-5, ax_g=1e-12, theta_m=0.2, omega_pul=1.0, b0=1e14,
                r_ns=10.0, mass_ns=1.0)
@@ -89,7 +86,7 @@ def test_event_kinematics_device_value_is_range_safe():
     k32, s32, c32, j32 = _event_kinematics(x, v, e, maxR, sc, tcfg, "f32")
     s32, s64 = np.asarray(s32), np.asarray(s64)
     scale = sln_scale(sc, maxR, tcfg)
-    # device values stay far inside f32 range on BOTH paths (TPU-safe) ...
+    # device values stay far inside f32 range on BOTH paths ...
     f32max = float(np.finfo(np.float32).max)
     for s in (s32, s64):
         assert np.all(np.isfinite(s)), s
@@ -98,7 +95,7 @@ def test_event_kinematics_device_value_is_range_safe():
     full = s64 * scale
     assert np.all(np.isfinite(full))
     assert full.max() > 1e38
-    # the TPU ships the pack as f32; NumPy-2 weak-scalar promotion keeps
+    # the f32 path ships the pack as f32; NumPy-2 weak-scalar promotion keeps
     # f32_array * python_float in f32 (-> inf at this magnitude), so the
     # driver MUST .astype(f64) before applying sln_scale (driver.py assemble)
     fetched = s32.astype(np.float32)         # what np.asarray(ev_pack) yields

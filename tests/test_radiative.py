@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from adiabatic_raytracer_tpu.config import Scene
-from adiabatic_raytracer_tpu.ops import radiative as rad
+from adiabatic_raytracer.config import Scene
+from adiabatic_raytracer.ops import radiative as rad
 
 SC = Scene(mass_a=1e-5, theta_m=0.3, omega_pul=1.0, b0=1e14, r_ns=10.0, mass_ns=1.0)
 
@@ -37,7 +37,7 @@ def test_dist_diff():
     x = np.zeros((1, 4, 3))
     x[0, :, 0] = [10.0, 20.0, 40.0, 70.0]
     d = rad.dist_diff(jnp.asarray(x))
-    from adiabatic_raytracer_tpu.constants import C_KM, HBAR
+    from adiabatic_raytracer.constants import C_KM, HBAR
 
     np.testing.assert_allclose(np.asarray(d)[0, 0], 10 / C_KM / HBAR, rtol=1e-12)
     np.testing.assert_allclose(np.asarray(d)[0, -1], np.asarray(d)[0, -3], rtol=1e-12)

@@ -4,9 +4,9 @@ sequence; compaction only re-orders lanes)."""
 import jax.numpy as jnp
 import numpy as np
 
-from adiabatic_raytracer_tpu.config import NumericsConfig, Scene
-from adiabatic_raytracer_tpu.ops.propagate import propagate
-from adiabatic_raytracer_tpu.ops.streaming import CompactedPropagator
+from adiabatic_raytracer.config import NumericsConfig, Scene
+from adiabatic_raytracer.ops.propagate import propagate
+from adiabatic_raytracer.ops.streaming import CompactedPropagator
 
 
 def test_compacted_matches_monolithic():
@@ -55,8 +55,8 @@ def test_driver_pool_compact_matches_pool(tmp_path):
     """engine='pool_compact' (backtrace through CompactedPropagator) is a
     production path: same rows as engine='pool' up to the compaction
     fusion-boundary noise."""
-    from adiabatic_raytracer_tpu.config import TreeConfig
-    from adiabatic_raytracer_tpu.driver import run
+    from adiabatic_raytracer.config import TreeConfig
+    from adiabatic_raytracer.driver import run
 
     sc = Scene(theta_m=0.2)
     tcfg = TreeConfig(num_cutoff=3, mc_nodes=2, max_nodes=8)

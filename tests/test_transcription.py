@@ -32,7 +32,7 @@ N_PTS = 20
 
 
 def _scene():
-    from adiabatic_raytracer_tpu.config import Scene
+    from adiabatic_raytracer.config import Scene
 
     return Scene(**SC_KW)
 
@@ -41,8 +41,8 @@ def _points(n=N_PTS, seed=7):
     """Random phase-space points in the conversion region: position near the
     surface, w_erg a bit above max(wp, mass_a), ksphere from a random local
     velocity direction (mirroring the production inputs)."""
-    from adiabatic_raytracer_tpu.models.magnetosphere import omega_p_sph
-    from adiabatic_raytracer_tpu.ops.dispersion import k_sphere
+    from adiabatic_raytracer.models.magnetosphere import omega_p_sph
+    from adiabatic_raytracer.ops.dispersion import k_sphere
 
     rng = np.random.default_rng(seed)
     sc = _scene()
@@ -79,7 +79,7 @@ def _rel(a, b):
 
 
 def test_omega_function(points):
-    from adiabatic_raytracer_tpu.ops.dispersion import omega_function
+    from adiabatic_raytracer.ops.dispersion import omega_function
 
     sc = _scene()
     for x_sph, _, ks, t, _, _ in points:
@@ -91,7 +91,7 @@ def test_omega_function(points):
 
 
 def test_k_norm_cart_branches(points):
-    from adiabatic_raytracer_tpu.ops.dispersion import k_norm_cart
+    from adiabatic_raytracer.ops.dispersion import k_norm_cart
 
     sc = _scene()
     for x_sph, x_cart, _, t, w_erg, v_loc in points[:10]:
@@ -111,7 +111,7 @@ def test_k_norm_cart_branches(points):
 
 
 def test_k_gamma(points):
-    from adiabatic_raytracer_tpu.ops.conversion import k_gamma
+    from adiabatic_raytracer.ops.conversion import k_gamma
 
     sc = _scene()
     for x_sph, _, ks, t, w_erg, _ in points[:10]:
@@ -125,7 +125,7 @@ def test_k_gamma(points):
 
 
 def test_dwp_ds_bundle(points):
-    from adiabatic_raytracer_tpu.ops.conversion import dwp_ds
+    from adiabatic_raytracer.ops.conversion import dwp_ds
 
     sc = _scene()
     for _, x_cart, ks, t, w_erg, _ in points[:6]:
@@ -138,7 +138,7 @@ def test_dwp_ds_bundle(points):
 
 
 def test_conversion_prob_chain(points):
-    from adiabatic_raytracer_tpu.ops.conversion import conversion_prob
+    from adiabatic_raytracer.ops.conversion import conversion_prob
 
     sc = _scene()
     for x_sph, _, ks, t, w_erg, _ in points:
@@ -152,7 +152,7 @@ def test_conversion_prob_chain(points):
 
 
 def test_get_prob_nonad(points):
-    from adiabatic_raytracer_tpu.ops.conversion import get_prob_nonad
+    from adiabatic_raytracer.ops.conversion import get_prob_nonad
 
     sc = _scene()
     for x_sph, x_cart, _, _, w_erg, v_loc in points:
@@ -167,7 +167,7 @@ def test_get_prob_nonad(points):
 
 
 def test_g_det(points):
-    from adiabatic_raytracer_tpu.ops.conversion import g_det
+    from adiabatic_raytracer.ops.conversion import g_det
 
     sc = _scene()
     for x_sph, _, _, t, _, _ in points[:10]:
@@ -178,7 +178,7 @@ def test_g_det(points):
 
 
 def test_v_infinity_and_jacobian(points):
-    from adiabatic_raytracer_tpu.ops.conversion import jacobian_fv, v_infinity
+    from adiabatic_raytracer.ops.conversion import jacobian_fv, v_infinity
 
     sc = _scene()
     for x_sph, x_cart, _, _, _, v_loc in points[:10]:

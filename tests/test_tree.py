@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adiabatic_raytracer_tpu.config import NumericsConfig, Scene, TreeConfig
-from adiabatic_raytracer_tpu.models.magnetosphere import conversion_surface_radius
-from adiabatic_raytracer_tpu.ops import sampler, tree
-from adiabatic_raytracer_tpu.ops.dispersion import k_norm_cart
+from adiabatic_raytracer.config import NumericsConfig, Scene, TreeConfig
+from adiabatic_raytracer.models.magnetosphere import conversion_surface_radius
+from adiabatic_raytracer.ops import sampler, tree
+from adiabatic_raytracer.ops.dispersion import k_norm_cart
 
 
 SC = Scene(mass_a=1e-5, ax_g=1e-12, theta_m=0.4, omega_pul=1.0, b0=1e14,
@@ -213,7 +213,7 @@ def test_prob_compaction_matches_full():
 
 
 def test_windowed_auto_k1_exact_cutoff_semantics():
-    """The windowed engine's auto-K is 1 (ops/tree.py), which makes the TPU
+    """The windowed engine's auto-K is 1 (ops/tree.py), which makes the
     production default match the reference's per-node cutoff accounting
     EXACTLY (MainRunner.jl:324-339): cutoffs are checked once per iteration
     and an iteration processes exactly one node per event, so no K-batch
